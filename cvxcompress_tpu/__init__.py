@@ -1,6 +1,6 @@
-"""cvxcompress_tpu: TPU-native lossy compression of 3D seismic wavefields.
+"""cvxcompress_tpu: lossy compression of 3D seismic wavefields on the GPU.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 ChevronETC/CvxCompress: blocked multi-level Antonini 7/9 3D wavelet
 transform, RMS-relative scalar quantization (global or per-block), and a
 run-length + escape-code entropy stage emitting the reference-compatible

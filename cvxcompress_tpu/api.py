@@ -1,8 +1,8 @@
 """Public API, shaped by the reference's class CvxCompress (CvxCompress.hxx:19-135).
 
 Three backends:
-  - "jax":    the TPU-native path (batched MXU wavelet transform, vectorized
-              scan-based entropy coder) — the default.
+  - "jax":    the device path (batched matmul wavelet transform,
+              vectorized scan-based entropy coder) — the default.
   - "native": the multithreaded C++ host codec (native/libcvxhost.so), also
               exposed as a reference-compatible C ABI for FFI consumers.
   - "oracle": the NumPy reference-semantics codec (format authority).
@@ -70,7 +70,7 @@ class CvxCompress:
     """Drop-in style class mirroring the reference API surface.
 
     Reference: CvxCompress.hxx:19-135.  The thread-count parameters of the
-    reference overloads have no TPU equivalent and are accepted/ignored.
+    reference overloads have no device equivalent and are accepted/ignored.
     """
 
     @staticmethod

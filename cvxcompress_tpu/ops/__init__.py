@@ -1,3 +1,3 @@
-"""TPU compute ops: block layout, MXU wavelet, quantization, entropy coding."""
+"""Device compute ops: block layout, matmul wavelet, quantization, entropy coding."""
 
 from . import blocks, quant, rle_device, wavelet  # noqa: F401

@@ -1,8 +1,8 @@
-"""Volume <-> block-grid layout transforms (the TPU-native Block_Copy).
+"""Volume <-> block-grid layout transforms (the device Block_Copy).
 
 The reference gathers/scatters strided blocks with SSE copies
 (Block_Copy.cpp:21-116 gather with zero-padding of partial edge blocks,
-:136-212 clipped scatter).  On TPU this is a layout problem, not a copy
+:136-212 clipped scatter).  On the device this is a layout problem, not a copy
 problem: pad once, reshape/transpose into a (nnn, bz, by, bx) block batch
 that every downstream kernel consumes, and invert at the end.
 

@@ -1,9 +1,8 @@
-"""TPU-native stream compaction primitives: monotone log-shift packing.
+"""Stream compaction primitives: monotone log-shift packing.
 
-Element-granular gathers/scatters run at ~0.1 Gelem/s on TPU (measured,
-PERF_NOTES.md) — three orders of magnitude below row-granular ops.  All
-variable-length packing in this framework therefore uses ONE primitive that
-needs only whole-array shifts and selects (both VPU-friendly):
+All variable-length packing in this framework uses ONE primitive that
+needs only whole-array shifts and selects (no data-dependent element
+gather or scatter):
 
     monotone log-shift compaction
     -----------------------------
@@ -18,9 +17,9 @@ needs only whole-array shifts and selects (both VPU-friendly):
 
 Compaction (front-packing) always has monotone distances: the distance of
 live element at position p is p - rank(p), and rank increments by at most 1
-per slot.  This is the TPU replacement for the reference's sequential byte
-cursor (Run_Length_Encode_Slow.cpp:189-294) and its omp-critical stream
-packing (CvxCompress.cpp:370-374).
+per slot.  This is the data-parallel replacement for the reference's
+sequential byte cursor (Run_Length_Encode_Slow.cpp:189-294) and its
+omp-critical stream packing (CvxCompress.cpp:370-374).
 """
 
 from __future__ import annotations

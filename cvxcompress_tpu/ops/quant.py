@@ -1,8 +1,8 @@
 """RMS reductions and the quantization contract on device.
 
 Global RMS contract (CvxCompress.cpp:73-117): float64 accumulation of sum of
-squares, sqrt, cast to float32.  TPUs have no native f64, so the framework
-contract is: per-shard partial sums are computed where the data lives and the
+squares, sqrt, cast to float32.  Device f64 is slow or absent, so the
+framework contract is: per-shard partial sums are computed where the data lives and the
 final f64 accumulation happens on host — identical math for the single-chip
 and multi-host paths (the distributed layer all-reduces the same partials).
 At API entry the volume is host-resident, so the single-process path simply

@@ -1,18 +1,17 @@
-"""TPU-native 3D wavelet transform: the multi-level cascade as MXU matmuls.
+"""3D wavelet transform: the multi-level cascade as matrix products.
 
-TPU-first design, NOT a port of the reference's AVX lifting kernels
+NOT a port of the reference's AVX lifting kernels
 (Wavelet_Transform_Fast.cpp / the generated Ds79/Us79 bodies): the full
 multi-level 1D transform along an axis is a *linear operator*, so we
 precompute one dense n x n matrix per axis length (composed in float64 from
 the per-level analysis/synthesis operators defined by the oracle's mirror
 rules, Wavelet_Transform_Slow.cpp:71-134,201-259) and apply the 3D transform
 as three batched tensor contractions.  Thousands of independent blocks batch
-into large matmuls that run on the MXU systolic array — where TPU FLOPs
-live — instead of translating scalar lifting loops onto the VPU.
+into large matrix products instead of scalar lifting loops.
 
 Accuracy: operators are composed in float64 and applied in a single float32
-contraction with HIGHEST precision; agreement with the scalar oracle cascade
-is ~1e-6 relative, well inside the 1e-5 bar the reference itself uses
+contraction at FLOAT_PREC; agreement with the scalar oracle cascade is
+~1e-6 relative, well inside the 1e-5 bar the reference itself uses
 between its own slow and fast paths (CvxCompress.cpp:597).
 """
 
@@ -26,22 +25,11 @@ import numpy as np
 
 from ..oracle import wavelet as ow
 
-import os as _os
-
-# Precision of the FLOAT wavelet contractions in XLA einsums (the int
-# one-hot dots elsewhere must stay HIGHEST: HIGH is exact only below
-# 2^16 on v5e, and Mosaic has no HIGH lowering so Pallas kernels pin
-# HIGHEST regardless).  "high" (3-pass bf16, ~2^-17 relative) is the
-# DEFAULT since the round-3 on-chip A/B: config-A device decompress
-# 6.7 ms vs 7.9 at "highest", CI quality bars unchanged (err 1.58e-4 /
-# 76.0 dB vs 1.57e-4 / 76.1) — the reference itself holds its slow and
-# fast paths to a 1e-5 bar (CvxCompress.cpp:597).
-# CVX_WAVELET_PREC=highest restores full-f32 contractions.
-FLOAT_PREC = (
-    jax.lax.Precision.HIGHEST
-    if _os.environ.get("CVX_WAVELET_PREC", "high") == "highest"
-    else jax.lax.Precision.HIGH
-)
+# Precision of every float wavelet contraction.  It must hold the 1e-5
+# relative transform contract against the oracle (CvxCompress.cpp:597) on
+# the device: measured on an H100, HIGH (TF32 inputs) misses it and
+# HIGHEST meets it (PERF.md, findings; tools/precision_check.py).
+FLOAT_PREC = jax.lax.Precision.HIGHEST
 
 
 def _level_matrix_forward(n):
@@ -137,8 +125,8 @@ def forward_3d(blocks):
     """Forward transform of a (..., bz, by, bx) block batch.
 
     Three contractions (x, then y, then z — the reference's axis order,
-    Wavelet_Transform_Slow.cpp:275-279); each is a batched matmul on the
-    MXU with float32 accumulation.
+    Wavelet_Transform_Slow.cpp:275-279); each is a batched matmul with
+    float32 accumulation.
     """
     bz, by, bx = blocks.shape[-3:]
     hi = FLOAT_PREC
@@ -177,9 +165,9 @@ def forward_3d_blocked(vol, vol_shape3, block):
 
     Applies the per-axis contractions in VOLUME order (all reshapes are
     free row-major splits) and folds the block-major permutation into the
-    final einsum's output indexing — measured ~25% faster at 128^3 blocks
-    than transform-after-to_blocks, bit-identical output (the contraction
-    order per axis is unchanged).
+    final einsum's output indexing: bit-identical to transform-after-
+    to_blocks (the contraction order per axis is unchanged) with one
+    fewer full-size relayout.
     """
     nz, ny, nx = vol_shape3
     bx, by, bz = block
@@ -208,10 +196,8 @@ def forward_3d_blocked(vol, vol_shape3, block):
 @functools.lru_cache(maxsize=None)
 def _blockdiag(dim, width, inverse):
     """(width, width) block-diagonal operator (float32 ndarray): width//dim
-    copies of the dim-axis operator.  Lets the x contraction run at FULL
-    lane width (K=N=width) instead of the lane-padded (.., dim)-minor view
-    — the zero blocks cost FLOPs but the MXU utilization win is ~4x at
-    dim=32 (measured; see PERF_NOTES.md round 2).
+    copies of the dim-axis operator, so the x contraction runs at full
+    row width (K=N=width) instead of on (.., dim)-minor rows.
     """
     m = inverse_matrix(dim) if inverse else forward_matrix(dim)
     k = width // dim
@@ -226,8 +212,8 @@ def apply_x_rows(rows, bx, inverse=True):
     max(bx, 128) or of bx when bx >= 128.
 
     Rows are viewed as (N*width/w, w) with w = max(bx, 128) — a free
-    row-major split keeping the matmul at full 128-lane tiles — and hit
-    with the block-diagonal operator.
+    row-major split keeping the matmul 128 wide — and hit with the
+    block-diagonal operator.
     """
     if bx <= 1:
         return rows
@@ -246,21 +232,19 @@ def apply_x_inverse_rows(rows, bx):
     return apply_x_rows(rows, bx, inverse=True)
 
 
-def forward_3d_volume(vol, vol_shape3, block, pad_x_blocks=False):
-    """Forward transform in VOLUME order: padded (nzp*nyp, nxp) plane.
+def forward_3d_volume(vol, vol_shape3, block):
+    """Forward transform in VOLUME order: the padded (nzp*nyp, nxp2) plane.
 
-    No block-major permutation anywhere — x (block-diagonal, full lane
+    No block-major permutation anywhere — x (block-diagonal, full row
     width), then y, then z contractions applied in place (the reference's
-    axis order, Wavelet_Transform_Slow.cpp:275-279).  The direct-volume
-    tokenize paths consume this plane via BlockSpec index arithmetic.
-    `pad_x_blocks` adds all-zero x-blocks up to 128-lane alignment
-    (padded_nbx) — phantom block columns that downstream stages drop.
+    axis order, Wavelet_Transform_Slow.cpp:275-279).  The plane has the
+    decode plane's layout, with all-zero x-blocks up to padded_nbx
+    (phantom block columns that downstream stages drop).
     """
     nz, ny, nx = vol_shape3
     bx, by, bz = block
     nbz, nby, nbx = -(-nz // bz), -(-ny // by), -(-nx // bx)
-    if pad_x_blocks:
-        nbx = padded_nbx(nbx, bx)
+    nbx = padded_nbx(nbx, bx)
     nzp, nyp, nxp = nbz * bz, nby * by, nbx * bx
     hi = FLOAT_PREC
     a = jnp.pad(vol, ((0, nzp - nz), (0, nyp - ny), (0, nxp - nx)))
@@ -278,10 +262,10 @@ def forward_3d_volume(vol, vol_shape3, block, pad_x_blocks=False):
 
 
 def padded_nbx(nbx, bx):
-    """x-block count rounded up so the padded x extent is 128-lane aligned.
+    """x-block count rounded up so the padded x extent is a multiple of 128.
 
-    Decode staging uses this so every x contraction runs on full
-    (8, 128)-tiled operands (bx >= 128 is already aligned).
+    The volume-order planes (decode, snapshots) use this width so every x
+    contraction runs on 128-wide rows (bx >= 128 is already aligned).
     """
     k = max(1, 128 // bx) if bx < 128 else 1
     return -(-nbx // k) * k
@@ -291,7 +275,7 @@ def inverse_3d_volume(rows, vol_shape3, block):
     """Inverse transform of VOLUME-ORDER coefficient rows (x already done).
 
     `rows` is (nzp*nyp, nxp2) float32 in padded volume order — nxp2 may
-    carry extra all-zero x-blocks for lane alignment (padded_nbx) — whose
+    carry extra all-zero x-blocks for alignment (padded_nbx) — whose
     x-axis inverse has ALREADY been applied (linearity lets the per-row
     operator commute with the expand; zero padding stays zero).  Applies
     the y and z contractions in volume order — no block-major permutation
@@ -320,7 +304,8 @@ def flops_per_cell(block):
     """Analytic FLOP count per cell for the matmul formulation.
 
     (The reference's lifting-FLOP model is CvxCompress.cpp:663-671; the
-    dense-operator formulation trades ~4x more FLOPs for MXU execution.)
+    dense-operator formulation trades ~4x more FLOPs for matrix-unit
+    execution.)
     """
     bx, by, bz = block
     return 2 * (bx * (bx > 1) + by * (by > 1) + bz * (bz > 1))

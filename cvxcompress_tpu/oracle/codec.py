@@ -6,7 +6,7 @@ and ::Decompress (:463-571).  Volumes are numpy arrays of shape (nz, ny, nx),
 C-order, so x is the fast (contiguous) axis, matching the reference memory
 layout.
 
-This codec is the correctness oracle and format authority for the TPU path:
+This codec is the correctness oracle and format authority for the device path:
 slow, obvious, and byte-exact against the grammar.
 """
 

@@ -3,7 +3,7 @@
 Byte-exact re-statement of the reference's vectorized encoder grammar
 (reference: Run_Length_Encode_Slow.cpp:189-294, the TMJ_AVX_RLE path, with
 escape codes from Run_Length_Escape_Codes.hxx:8-14).  This module is the
-format authority the TPU encoder is tested against bit-for-bit.
+format authority the device encoder is tested against bit-for-bit.
 
 Token grammar (all little-endian):
   plain byte   b in (-125,125)       1 B   quantized value (0 = single zero)

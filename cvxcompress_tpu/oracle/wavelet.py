@@ -1,6 +1,6 @@
 """NumPy oracle for the Antonini 7/9 multi-level 3D wavelet transform.
 
-This is the correctness oracle for the TPU codec: a direct, trivially-auditable
+This is the correctness oracle for the device codec: a direct, trivially-auditable
 implementation of the transform semantics defined by the reference's scalar
 path (reference: Wavelet_Transform_Slow.cpp:71-134 forward, :201-259 inverse,
 :261-301 3D drivers).  All arithmetic is float32 with the same per-element

@@ -1,3 +1,3 @@
-"""Multi-chip parallel layer: mesh helpers and sharded compress/decompress."""
+"""Multi-device parallel layer: mesh helpers and sharded compress/decompress."""
 
 from . import compress, mesh  # noqa: F401

@@ -1,8 +1,8 @@
-"""Multi-chip block-data-parallel compress/decompress (shard_map + pjit).
+"""Multi-device block-data-parallel compress/decompress (shard_map + pjit).
 
-TPU-native replacement for the reference's OpenMP fan-out
+The device replacement for the reference's OpenMP fan-out
 (CvxCompress.cpp:318): the (nnn, bz, by, bx) block batch shards along a 1D
-device mesh; every chip runs the identical SPMD program (MXU wavelet +
+device mesh; every device runs the identical SPMD program (matmul wavelet +
 vectorized entropy encode + per-shard compaction).  The two cross-device
 couplings of the algorithm:
 
@@ -13,10 +13,10 @@ couplings of the algorithm:
     omp-critical byte cursor (CvxCompress.cpp:370-374, payload order
     nondeterministic); here per-block sizes flow through exclusive prefix
     sums (within shard on device, across shards on host), so the container
-    is deterministic and bit-identical to the single-chip path.
+    is deterministic and bit-identical to the single-device path.
 
 Containers produced under any mesh size are byte-identical to each other
-and to the single-chip backend (tested in tests/test_parallel.py).
+and to the single-device backend (tested in tests/test_parallel.py).
 """
 
 from __future__ import annotations
@@ -66,11 +66,8 @@ def distributed_sumsq(vol_sharded, mesh):
 def _stage1(mesh, use_local, chunk):
     """Sharded forward wavelet + tokenize (PASS 1). Cached per (mesh, mode)."""
     spec_b = P(meshlib.BLOCK_AXIS)
-    pallas_ok = meshlib.is_tpu_mesh(mesh)
 
     def run(blocks, glob_mf, scale):
-        from ..ops import tokenize_pallas as tp
-
         coeffs = wavelet.forward_3d(blocks)
         n = coeffs.shape[0]
         if use_local:
@@ -81,20 +78,9 @@ def _stage1(mesh, use_local, chunk):
         cells = coeffs2d.shape[1]
         fv2d = (coeffs2d * mf[:, None]).astype(jnp.float32)
         nch = n * (cells // chunk)
-        if pallas_ok and chunk == tp.LANES:
-            fvc = fv2d.reshape(nch, chunk)
-            pad = tp.pad_rows2(nch) - nch
-            if pad:
-                fvc = jnp.concatenate(
-                    [fvc, jnp.zeros((pad, chunk), jnp.float32)], axis=0
-                )
-            desc, chunk_bytes, sizes, raw, counts = tp.tokenize_desc_fast2(
-                fvc, n, cells // chunk, chunk
-            )
-        else:
-            desc, chunk_bytes, sizes, raw, counts = rle_device.tokenize_desc(
-                rle_device.as_rows(fv2d), n, chunk
-            )
+        desc, chunk_bytes, sizes, raw, counts = rle_device.tokenize_desc(
+            rle_device.as_rows(fv2d), n, chunk
+        )
         # scaled chunks feed pack; unscaled chunks feed raw-block payloads
         return (fv2d.reshape(nch, chunk), coeffs2d.reshape(nch, chunk),
                 desc, chunk_bytes, sizes, raw, mf, counts[None])
@@ -103,7 +89,7 @@ def _stage1(mesh, use_local, chunk):
         run, mesh=mesh,
         in_specs=(P(meshlib.BLOCK_AXIS, None, None, None), P(), P()),
         out_specs=(spec_b,) * 7 + (P(meshlib.BLOCK_AXIS, None),),
-        check_vma=False,  # pallas_call outputs carry no vma info
+        check_vma=False,
     )
     return jax.jit(sm)
 
@@ -111,12 +97,10 @@ def _stage1(mesh, use_local, chunk):
 @functools.lru_cache(maxsize=None)
 def _stage2(mesh, chunk, acap, lcap):
     """Sharded per-shard packing (PASS 2) at static caps. Cached per config."""
-    pallas_ok = meshlib.is_tpu_mesh(mesh)
 
     def run(fvchunks, desc, chunk_bytes):
         subrows, aidx, abytes = rle_device.pack_active(
-            fvchunks, desc, chunk_bytes, acap, lcap,
-            use_pallas_kernel=pallas_ok,
+            fvchunks, desc, chunk_bytes, acap, lcap
         )
         return subrows[None], aidx[None], abytes[None]
 
@@ -132,13 +116,13 @@ def _stage2(mesh, chunk, acap, lcap):
             P(meshlib.BLOCK_AXIS, None),
             P(meshlib.BLOCK_AXIS, None),
         ),
-        check_vma=False,  # pallas_call outputs carry no vma info
+        check_vma=False,
     )
     return jax.jit(sm)
 
 
 def compress(vol, scale, block=(32, 32, 32), use_local_rms=False, mesh=None):
-    """Sharded compress. Container bit-identical to the single-chip backend."""
+    """Sharded compress. Container bit-identical to the single-device backend."""
     vol = np.ascontiguousarray(vol, dtype=F32)
     nz, ny, nx = vol.shape
     bx, by, bz = block
@@ -170,7 +154,7 @@ def compress(vol, scale, block=(32, 32, 32), use_local_rms=False, mesh=None):
     )(blocks_d, jnp.float32(glob_mulfac), jnp.float32(scale))
     # count-only readback (8 bytes/shard) — NO d2h proportional to raw
     # size; the chunk table stays on device (same discipline as the
-    # single-chip path's tokenize_desc counts)
+    # single-device path's tokenize_desc counts)
     counts_h = np.asarray(counts)
     sizes_h = np.asarray(sizes)
     raw_h = np.asarray(raw)[:nnn]
@@ -256,19 +240,16 @@ def _decode_inv_stage(mesh, block, bps, sseg):
     """Per-shard DEVICE entropy parse + inverse wavelet (SPMD).
 
     Each shard parses its own segment slice (block ids shard-local) into a
-    dense block batch and inverts it — the multi-chip twin of the
-    single-chip device-complete decompress.
+    dense block batch and inverts it — the multi-device twin of the
+    single-device device-complete decompress.
     """
     from ..ops import entropy_decode as ed
 
     bx, by, bz = block
 
-    pallas_ok = meshlib.is_tpu_mesh(mesh)
-
     def run(segs, sblk, srst, ssf):
         dense = ed.decode_to_blocks.__wrapped__(
             segs[0], sblk[0], srst[0], ssf[0], bps, (bx, by, bz), sseg,
-            pallas_ok,
         )
         out = wavelet.inverse_3d(dense.reshape(bps, bz, by, bx))
         return out[None]
@@ -345,7 +326,7 @@ def decompress(data, mesh=None):
     """Sharded decompress with the DEVICE entropy parse per shard.
 
     On a single-device mesh this delegates to the device-complete
-    single-chip engine; multi-chip, each shard parses its own segment
+    single-device engine; on several devices each shard parses its own segment
     slice (ops.entropy_decode through shard_map) and inverts its block
     batch — only the container parse and the per-shard segment memcpy run
     on host.  Containers with raw-fallback blocks take the host-decode

@@ -2,11 +2,12 @@
 
 The codec's only distribution axis is the block grid (blocks are fully
 independent once the scalar mulfac is known — the reference exploits the
-same property with OpenMP dynamic scheduling, CvxCompress.cpp:318).  On TPU
-this becomes a 1D mesh over all chips with blocks sharded along it; the two
-global couplings are (1) the RMS reduction (psum over ICI) and (2) the
-payload offset table (prefix sum over per-block sizes — deterministic, no
-critical section).
+same property with OpenMP dynamic scheduling, CvxCompress.cpp:318).  Here
+it is a flat 1D mesh over all devices with blocks sharded along it (the
+GPUs of one host reach each other all to all over NVLink, so the mesh
+follows the algorithm alone); the two global couplings are (1) the RMS
+reduction (a psum) and (2) the payload offset table (prefix sum over
+per-block sizes — deterministic, no critical section).
 """
 
 from __future__ import annotations
@@ -23,14 +24,6 @@ def make_mesh(devices=None):
     if devices is None:
         devices = jax.devices()
     return Mesh(np.asarray(devices), (BLOCK_AXIS,))
-
-
-def is_tpu_mesh(mesh):
-    """True when the mesh's devices are real TPU chips (Pallas-capable)."""
-    d = np.asarray(mesh.devices).ravel()[0]
-    return getattr(d, "platform", "") == "tpu" and "TPU" in getattr(
-        d, "device_kind", ""
-    )
 
 
 def block_sharding(mesh, ndim=4):

@@ -1,10 +1,14 @@
 """Multi-host driver for sharded compression (jax.distributed).
 
 Each host owns a contiguous z-slab of blocks (parallel.sharded.plan_shards)
-and runs the single-host TPU pipeline on its local devices; the only
+and runs the single-host pipeline on its local devices; the only
 cross-host traffic is an 8-byte sum-of-squares all-reduce before
-compression and the segment gather at the end (DCN), matching the two
-global couplings identified in SURVEY.md §2.
+compression and the segment gather at the end (over the host network),
+matching the two global couplings identified in SURVEY.md §2.
+
+On one GPU host a single process drives all local cards (one volume over
+four cards is parallel.compress on a make_mesh() of them); this module is
+for several hosts, one process per host.  It is off the main path.
 
 Usage (one process per host, standard JAX multi-process setup):
 
@@ -13,7 +17,7 @@ Usage (one process per host, standard JAX multi-process setup):
     data = multihost.compress(local_slab, scale, block)   # on process 0
 
 Two gather strategies:
-  * `gather="allgather"` — segments travel over DCN via
+  * `gather="allgather"` — segments travel between hosts via
     jax.experimental.multihost_utils; process 0 merges and returns the
     container (other processes return None).
   * `gather="files"` — each host writes `<prefix>.seg<k>`; merging is a
@@ -22,8 +26,7 @@ Two gather strategies:
 
 This module is exercised in CI in its degenerate single-process form
 (tests/test_sharded.py covers the shard/merge math byte-for-byte); the
-multi-process paths follow stock JAX collectives and are structured so a
-2+ host pod runs them unchanged.
+multi-process paths follow stock JAX collectives.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@
 //     *_th variants, mirroring /root/reference/CvxCompress.hxx:139-192) so
 //     existing FFI consumers (e.g. the Julia wrapper ecosystem) can switch,
 //   * a fast multi-threaded entropy decoder/encoder used by the Python
-//     package for host-side stream handling around the TPU compute path,
+//     package for host-side stream handling around the device compute path,
 //   * a complete standalone CPU codec (scalar wavelet + entropy stage)
 //     for environments without an accelerator.
 //

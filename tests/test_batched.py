@@ -142,7 +142,7 @@ def test_plan_row_decode_plane_bit_exact(rng):
         p = ed.plan(d)
         segs, sb, sr, sf = jcodec._upload_plan(p)
         pl = ed.decode_to_volume(
-            segs, sb, sr, sf, shape, block, p["segs"].shape[0], False
+            segs, sb, sr, sf, shape, block, p["segs"].shape[0]
         )
         planes.append(np.asarray(pl))
     plans = [ed.plan(d, reuse_staging=False) for d in datas]
@@ -152,7 +152,7 @@ def test_plan_row_decode_plane_bit_exact(rng):
     blob = jnp.asarray(jcodec._plan_rows(plans, cap, hdr.grid[3], False))
     for k, pl in enumerate(planes):
         got = np.asarray(jcodec._decode_plane_row(
-            blob[k], shape, block, cap, False, False
+            blob[k], shape, block, cap, False
         ))
         np.testing.assert_array_equal(got, pl)
 

@@ -1,5 +1,5 @@
 """BIT-for-bit parity with the reference's deployed (generated plain-AVX)
-wavelet path — the BASELINE.json target, settled by implementation.
+wavelet path, settled by implementation.
 
 The reference's fast transforms are generated straight-line AVX whose
 accumulation order differs from its own slow oracle
@@ -10,7 +10,8 @@ reproduces on non-x86 CI — and implemented by
 native/cvx_host.cpp:wav_*_axis_parity with the exact generated op order.
 
 These tests build the ACTUAL reference library (same fixture as
-test_reference_interop) and assert:
+test_reference_interop, which skips when the reference tree is absent)
+and assert:
   * forward parity: the quantized coefficient streams of our parity
     compress and the reference's compress decode to bit-identical values
     (payload order differs by design: the reference's is

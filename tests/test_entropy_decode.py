@@ -248,104 +248,5 @@ def test_decode_handcrafted_boundary_straddles():
         )
 
 
-def test_chase_kernel_interpret(rng):
-    """The (experimental, opt-in) Pallas scalar-chase kernel matches the
-    sequential reference chase — exercised in interpret mode; the compiled
-    kernel is gated off (hangs the current TPU toolchain, see
-    entropy_decode._use_chase_kernel)."""
-    import jax.experimental.pallas as pl
-
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
-
-    pl.pallas_call = patched
-    try:
-        nsub, cap = 192, 4096
-        T = rng.integers(0, ed.E, (nsub, ed.E)).astype(np.int32)
-        NV = rng.integers(0, 600, (nsub, ed.E)).astype(np.int32)
-        reset = rng.random(nsub) < 0.15
-        reset[0] = True
-        e32, c32 = ed._chase_pallas(
-            jnp.asarray(T), jnp.asarray(NV), jnp.asarray(reset), cap
-        )
-        e32, c32 = np.asarray(e32), np.asarray(c32)
-        e = c = 0
-        for k in range(nsub):
-            if reset[k]:
-                e, c = 0, 0
-            assert e32[k] == e and c32[k] == c, k
-            e, c = T[k, e], min(c + NV[k, e], cap)
-    finally:
-        pl.pallas_call = orig
-
-
 # (decode of a container produced by the ACTUAL reference binary — with its
 # thread-completion payload order — is covered in test_reference_interop.py)
-
-
-def test_emit_kernel_matches_xla_chain():
-    """The Pallas emit kernel (interpret mode) produces byte-identical
-    (val, idx) planes to the XLA emit chain + target math on a real
-    container covering every token class."""
-    import jax.numpy as jnp
-
-    from cvxcompress_tpu.ops import codec as jcodec
-    from cvxcompress_tpu.ops import entropy_decode as ed
-    from cvxcompress_tpu.ops import wavelet
-
-    rng = np.random.default_rng(11)
-    shape, block = (64, 96, 96), (32, 32, 32)
-    vol = (rng.standard_normal(shape) * 300).astype(np.float32)
-    vol[rng.random(shape) >= 0.4] = 0.0
-    data, _ = jcodec.compress(vol, 1e-2, block=block)
-    p = ed.plan(data)
-    assert p is not None
-    cells = block[0] * block[1] * block[2]
-    segs = jnp.asarray(p["segs"])
-    sub_block = jnp.asarray(p["sub_block"])
-    sub_reset = jnp.asarray(p["sub_reset"])
-    scalefac = jnp.asarray(p["scalefac"])
-    M, e32, c32, vals_s, sv, Bx = ed._parse_stages(
-        segs, sub_reset, cells, False
-    )
-
-    # XLA chain reference
-    nz, ny, nx = shape
-    bx, by, bz = block
-    nbz, nby, nbx = -(-nz // bz), -(-ny // by), -(-nx // bx)
-    nbx2 = wavelet.padded_nbx(nbx, bx)
-    nyp, nxp = nby * by, nbx2 * bx
-    total = nbz * bz * nyp * nxp
-    nseg = Bx.shape[0]
-    emit, val, pos = ed._emit_values(
-        M, e32, c32, vals_s, sv, Bx, scalefac, cells
-    )
-    b = jnp.broadcast_to(
-        sub_block.reshape(nseg, ed.SPS, 1), (nseg, ed.SPS, ed.W)
-    ).reshape(nseg, ed.SEG)
-    bzi = b // (nby * nbx)
-    byi = (b // nbx) % nby
-    bxi = b % nbx
-    zl = pos // (by * bx)
-    yl = (pos // bx) % by
-    xl = pos % bx
-    tgt = ((bzi * bz + zl) * nyp + (byi * by + yl)) * nxp + bxi * bx + xl
-    # dead entries are OUT of bounds (total+1) so the scatter's
-    # mode="drop" discards them instead of colliding on a dummy slot
-    idx_ref = np.asarray(jnp.where(emit, tgt, total + 1))
-    val_ref = np.asarray(jnp.where(emit, val, 0.0))
-
-    kval, kidx, ktotal = ed._emit_values_pallas(
-        M, e32, c32, vals_s, sv, Bx, scalefac, sub_block, shape, block,
-        interpret=True,
-    )
-    assert ktotal == total
-    kidx = np.asarray(kidx)
-    kval = np.asarray(kval)
-    live = idx_ref != total + 1
-    np.testing.assert_array_equal(kidx[live], idx_ref[live])
-    np.testing.assert_array_equal((kidx == total + 1)[~live], True)
-    np.testing.assert_array_equal(kval[live], val_ref[live])

@@ -1,4 +1,4 @@
-"""End-to-end TPU-backend codec: round trips, cross-backend compatibility."""
+"""End-to-end device codec: round trips, cross-backend compatibility."""
 
 import numpy as np
 import pytest
@@ -180,227 +180,6 @@ def test_extreme_block_shapes(vol_shape, block):
     assert err2 < 2e-3
 
 
-def test_volume_rowmap_is_block_layout(rng):
-    """volume_rowmap is exactly the to_blocks chunk permutation (bx>=128)."""
-    from cvxcompress_tpu.ops import blocks as blkops
-
-    shape, block = (24, 40, 256), (128, 8, 8)
-    vol = rng.standard_normal(shape).astype(np.float32)
-    nbz, nby, nbx = blkops.grid_shape(shape, block)
-    pad = np.zeros((nbz * 8, nby * 8, nbx * 128), np.float32)
-    pad[:24, :40, :256] = vol
-    flat = pad.reshape(-1, 128)
-    bm = blkops.to_blocks_np(vol, block).reshape(-1, 128)
-    rowmap = jcodec.volume_rowmap(shape, block)
-    c = np.arange(bm.shape[0], dtype=np.int64)
-    np.testing.assert_array_equal(flat[rowmap(c)], bm)
-
-
-def test_volume_tokenize_matches_blockmajor_interpret(rng):
-    """The direct-volume tokenize tiling produces bit-identical descriptors
-    to the block-major kernel on the SAME values (interpret mode)."""
-    from cvxcompress_tpu.ops import tokenize_pallas as tp
-
-    shape, block = (128, 128, 256), (128, 128, 128)
-    assert tp.volume_path_ok(shape, block)
-    nchunks = (shape[0] * shape[1] * shape[2]) // 128
-    fvv_flat = (rng.standard_normal((nchunks, 128)) * 50).astype(np.float32)
-    fvv_flat[rng.random((nchunks, 128)) < 0.85] = 0.0
-
-    rowmap = jcodec.volume_rowmap(shape, block)
-    c = np.arange(nchunks, dtype=np.int64)
-    fvp = np.zeros((tp.pad_rows(nchunks), 128), np.float32)
-    fvp[:nchunks] = fvv_flat[rowmap(c)]  # same VALUES, block-major order
-
-    import jax.numpy as jnp
-
-    d_v = tp.tokenize_desc_volume_fast(
-        jnp.asarray(fvv_flat), shape, block, interpret=True
-    )
-    d_b = tp.tokenize_desc_fast(
-        jnp.asarray(fvp), 2, nchunks // 2, 128, interpret=True
-    )
-    for a, b, name in zip(d_v, d_b, ("desc", "cb", "sizes", "raw", "counts")):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)
-
-
-def test_volume_compress_path_container_parity(monkeypatch, rng):
-    """compress() through the bx>=128 volume fast path emits the same
-    container as the standard path (interpret-mode kernels on CPU)."""
-    import jax.experimental.pallas as pl
-
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pl, "pallas_call", patched)
-
-    shape, block = (128, 128, 256), (128, 128, 128)
-    vol = make_sinusoid_volume(*shape, periods=3)
-    ref, _ = jcodec.compress(vol, 1e-2, block=block)  # standard CPU path
-
-    monkeypatch.setattr(jcodec, "use_pallas", lambda: True)
-    monkeypatch.setenv("CVX_FUSED_W", "0")  # pin the VOLUME path under test
-    monkeypatch.setenv("CVX_VOLUME_COMPRESS", "1")
-    assert jcodec._use_volume_path(shape, block, False, 128)
-    got, _ = jcodec.compress(vol, 1e-2, block=block)
-    # payload layout + sizes identical; values may differ at quantization
-    # boundaries (einsum-shape 1ulp) — require byte equality here since the
-    # sinusoid sits far from truncation edges
-    np.testing.assert_array_equal(ref, got)
-
-
-def test_stripe_tokenize_matches_blockmajor_interpret(rng):
-    """The bx<128 stripe tiling produces the same descriptors (gathered to
-    chunk order) and byte accounting as the block-major kernel on the SAME
-    values (interpret mode)."""
-    import jax.numpy as jnp
-
-    from cvxcompress_tpu.ops import tokenize_pallas as tp
-
-    shape, block = (64, 96, 96), (32, 32, 32)
-    assert tp.stripe_path_ok(shape, block)
-    nbz, nby, nbx = 2, 3, 3
-    nbx2 = 4  # padded_nbx(3, 32) with 128-lane alignment
-    R, W = 64 * 96, nbx2 * 32
-    fvv = np.zeros((R, W), np.float32)
-    real = (rng.standard_normal((R, nbx * 32)) * 50).astype(np.float32)
-    real[rng.random(real.shape) < 0.85] = 0.0
-    fvv[:, : nbx * 32] = real
-
-    d_v, _cbrow, cb_v, sz_v, raw_v, cnt_v = tp.tokenize_desc_stripe_fast(
-        jnp.asarray(fvv), shape, block, interpret=True
-    )
-
-    # same values in block-major chunk order via the stripe rowmap
-    rowmap = jcodec.stripe_rowmap(shape, block)
-    nchunks = nbz * nby * nbx * (32 * 32 * 32 // 128)
-    rows = np.asarray(rowmap(np.arange(nchunks, dtype=np.int64)))
-    fvp = np.zeros((tp.pad_rows2(nchunks), 128), np.float32)
-    fvp[:nchunks] = fvv.reshape(-1, 32)[rows.reshape(-1)].reshape(nchunks, 128)
-    d_b, cb_b, sz_b, raw_b, cnt_b = tp.tokenize_desc_fast2(
-        jnp.asarray(fvp), nbz * nby * nbx, 32 * 32 * 32 // 128, 128,
-        interpret=True,
-    )
-    got_desc = np.asarray(d_v).reshape(-1, 32)[rows.reshape(-1)].reshape(
-        nchunks, 128
-    )
-    np.testing.assert_array_equal(got_desc, np.asarray(d_b))
-    np.testing.assert_array_equal(np.asarray(cb_v), np.asarray(cb_b))
-    np.testing.assert_array_equal(np.asarray(sz_v), np.asarray(sz_b))
-    np.testing.assert_array_equal(np.asarray(raw_v), np.asarray(raw_b))
-    np.testing.assert_array_equal(np.asarray(cnt_v)[:2], np.asarray(cnt_b))
-
-
-def test_stripe_compress_path_container_parity(monkeypatch):
-    """compress() through the bx<128 stripe fast path emits the same
-    container as the standard path (interpret-mode kernels on CPU)."""
-    import jax.experimental.pallas as pl
-
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pl, "pallas_call", patched)
-
-    shape, block = (64, 96, 96), (32, 32, 32)
-    vol = make_sinusoid_volume(*shape, periods=3)
-    ref, _ = jcodec.compress(vol, 1e-2, block=block)  # standard CPU path
-
-    monkeypatch.setenv("CVX_STRIPE", "1")
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "0")  # pin the staged path
-    monkeypatch.setattr(jcodec, "use_pallas", lambda: True)
-    assert jcodec._use_stripe_path(shape, block, False, 128)
-    got, _ = jcodec.compress(vol, 1e-2, block=block)
-    np.testing.assert_array_equal(ref, got)
-
-
-def test_fused_tokenize_compact_interpret(rng):
-    """Fused tokenize+compact kernel vs dense kernel path (interpret mode).
-
-    Exercises the tile-boundary run carry, within-tile row compaction,
-    append-cursor DMAs, and the pad-tile fake-active filtering."""
-    import jax.numpy as jnp
-
-    from cvxcompress_tpu.ops import rle_device, tokenize_pallas as tp
-
-    n, cells, chunk = 3, tp.TR * 128, 128  # 3 blocks => 3 tiles exactly
-    ncpb = cells // chunk
-    nchunks = n * ncpb
-    c = (rng.standard_normal((n, cells)) * 60).astype(np.float32)
-    c[rng.random((n, cells)) < 0.9] = 0.0
-    padded = np.zeros((tp.pad_rows(nchunks), chunk), np.float32)
-    padded[:nchunks] = c.reshape(nchunks, chunk)
-    fvp = jnp.asarray(padded)
-
-    d_desc, d_cb, d_sizes, d_raw, _ = tp.tokenize_desc_fast(
-        fvp, n, ncpb, chunk, interpret=True
-    )
-    f_cb, f_sizes, f_raw, f_counts, fvc, dscc, meta = tp.tokenize_compact_fast(
-        fvp, n, ncpb, chunk, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(d_cb), np.asarray(f_cb))
-    np.testing.assert_array_equal(np.asarray(d_sizes), np.asarray(f_sizes))
-
-    emitted = int(np.asarray(f_counts)[0])
-    meta_h = np.asarray(meta)[:emitted, :2]
-    live = meta_h[:, 1] > 0
-    got_ids = meta_h[live, 0]
-    want_ids = np.nonzero(np.asarray(d_cb) > 0)[0]
-    np.testing.assert_array_equal(got_ids, want_ids)
-    fvc_h, dscc_h = np.asarray(fvc), np.asarray(dscc)
-    rows = np.nonzero(live)[0]
-    np.testing.assert_array_equal(
-        fvc_h[rows], padded[got_ids]
-    )
-    np.testing.assert_array_equal(
-        dscc_h[rows], np.asarray(d_desc)[got_ids]
-    )
-
-
-def test_fused_path_assembly_matches_oracle(rng):
-    """Full fused flow (XLA pack fallback) vs oracle payloads on CPU."""
-    import jax.numpy as jnp
-
-    from cvxcompress_tpu.ops import rle_device, tokenize_pallas as tp
-
-    n, chunk = 2, 128
-    cells = tp.TR * 128  # 1 tile per block
-    ncpb = cells // chunk
-    nchunks = n * ncpb
-    c = (rng.standard_normal((n, cells)) * 60).astype(np.float32)
-    c[rng.random((n, cells)) < 0.95] = 0.0
-    padded = np.zeros((tp.pad_rows(nchunks), chunk), np.float32)
-    padded[:nchunks] = c.reshape(nchunks, chunk)
-    fvp = jnp.asarray(padded)
-
-    cb, sizes, raw, counts, fvc, dscc, meta = tp.tokenize_compact_fast(
-        fvp, n, ncpb, chunk, interpret=True
-    )
-    emitted, lcount = (int(v) for v in np.asarray(counts))
-    acap = rle_device.bucket(emitted)
-    lcap = rle_device.bucket(lcount)
-    subrows, aidx, ab = rle_device.pack_compacted(
-        fvc, dscc, meta[:, :2], counts[0], acap, lcap,
-        use_pallas_kernel=False,
-    )
-    stream, total = rle_device.assemble_payload_filtered(
-        np.asarray(subrows), np.asarray(aidx), np.asarray(ab), emitted,
-        np.asarray(sizes), np.asarray(raw), None, cells, chunk,
-    )
-    sizes_h = np.asarray(sizes)
-    pos = 0
-    for i in range(n):
-        expect = orle.encode(np.float32(1.0), c[i])
-        got = stream[pos : pos + sizes_h[i]].tobytes()
-        assert got == expect, f"block {i} differs"
-        pos += sizes_h[i]
-
-
 def test_all_raw_volume_roundtrip(rng):
     """A volume where every block takes the raw fallback reconstructs the
     coefficients bit-exactly (raw payload bytes are the untouched f32s)."""
@@ -424,47 +203,23 @@ def test_noncontiguous_and_f64_inputs():
     np.testing.assert_array_equal(d1, d3)
 
 
-def _interpret_kernels(monkeypatch):
-    import jax.experimental.pallas as pl
-
-    from cvxcompress_tpu.ops import tokenize_pallas as _tp
-
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pl, "pallas_call", patched)
-    # builders see interpret=False (the patch flips it inside
-    # pallas_call), so their split3 gating would wrongly engage the
-    # bf16-split dots on CPU — pin full-f32 dots for parity fixtures
-    orig_dot3 = _tp.mxu_dot3
-    monkeypatch.setattr(
-        _tp, "mxu_dot3", lambda a, b, split: orig_dot3(a, b, False)
-    )
-
-
 @pytest.mark.parametrize(
     "shape,block,density,scale",
     [
         ((64, 96, 96), (32, 32, 32), 0.15, 30.0),   # mixed classes, sparse
         ((64, 96, 96), (32, 32, 32), 0.9, 2000.0),  # dense + raw blocks
-        ((64, 64, 160), (16, 32, 32), 0.2, 30.0),   # bx=16, T>1 thirds
-        ((32, 64, 96), (8, 16, 32), 0.3, 30.0),     # bx=8 (rpc=16)
-        ((64, 64, 192), (64, 32, 64), 0.25, 30.0),  # bx=64, pitch=5*bx
+        ((64, 64, 160), (16, 32, 32), 0.2, 30.0),   # bx=16, partial x block
+        ((32, 64, 96), (8, 16, 32), 0.3, 30.0),     # bx=8
+        ((64, 64, 192), (64, 32, 64), 0.25, 30.0),  # bx=64
     ],
 )
-def test_stripe_seg_container_parity_random(monkeypatch, rng, shape, block,
-                                            density, scale):
-    """The SEGMENT stripe pack emits byte-identical containers to the
-    standard path on adversarial random data: every token class (incl.
-    VLESC4 raw floats), zero runs straddling rows/segments/thirds,
-    raw-fallback blocks, phantom x-pad columns (interpret kernels)."""
-    from cvxcompress_tpu.ops import tokenize_pallas as tp
+def test_container_matches_oracle_random(rng, shape, block, density, scale):
+    """Every block's payload equals the oracle encoder fed the device's own
+    scaled coefficients, on adversarial random data: every token class
+    (incl. VLESC4 raw floats), zero runs straddling chunks and rows, and
+    raw-fallback blocks; the device parse and the host decoder agree."""
+    from cvxcompress_tpu.utils import checks
 
-    _interpret_kernels(monkeypatch)
-    assert tp.stripe_path_ok(shape, block)
     vol = (rng.standard_normal(shape) * scale).astype(np.float32)
     vol[rng.random(shape) >= density] = 0.0
     # a handful of huge values to force VLESC4 / int-range edge tokens
@@ -472,181 +227,57 @@ def test_stripe_seg_container_parity_random(monkeypatch, rng, shape, block,
     hot = rng.integers(0, flat.size, 50)
     flat[hot] = (rng.standard_normal(50) * 3e9).astype(np.float32)
 
-    ref, _ = jcodec.compress(vol, 1e-2, block=block)  # standard CPU path
-
-    monkeypatch.setenv("CVX_STRIPE", "1")
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "0")  # pin the staged path
-    monkeypatch.setattr(jcodec, "use_pallas", lambda: True)
-    assert jcodec._use_stripe_path(shape, block, False, 128) == "seg"
-    got, _ = jcodec.compress(vol, 1e-2, block=block)
-    np.testing.assert_array_equal(ref, got)
-    # and the containers decode (host engine) to the same volume
-    np.testing.assert_array_equal(
-        jcodec.decompress(ref, engine="host"),
-        jcodec.decompress(got, engine="host"),
-    )
+    data, _ = jcodec.compress(vol, 1e-2, block=block)
+    ids = np.arange(ctn.unpack(data)[0].grid[3])
+    assert checks.entropy_mismatches(vol, data, 1e-2, ids) == []
+    assert checks.decoders_agree(data)
 
 
-def test_stripe_seg_metadata_fallback_parity(monkeypatch, rng):
-    """The giant-volume fallback (per-subrow metadata + host reorder,
-    taken when the block-order sort key would overflow i32 —
-    seg_block_order_ok) emits byte-identical containers to the default
-    block-order path."""
-    from cvxcompress_tpu.ops import rle_device as rd
+def test_local_rms_container_matches_oracle():
+    """Local RMS: per-block mulfacs equal the device's own, every payload
+    equals the oracle encoder's, and the round trip holds the codec's
+    quality on the CI-style sinusoid."""
+    from cvxcompress_tpu.utils import checks
 
     shape, block = (64, 96, 96), (32, 32, 32)
-    _interpret_kernels(monkeypatch)
-    vol = (rng.standard_normal(shape) * 30).astype(np.float32)
-    vol[rng.random(shape) >= 0.2] = 0.0
-    vol.reshape(-1)[rng.integers(0, vol.size, 20)] = 3e9  # raw blocks
-    monkeypatch.setattr(jcodec, "use_pallas", lambda: True)
-    monkeypatch.setenv("CVX_STRIPE", "1")
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "0")
-    assert jcodec._use_stripe_path(shape, block, False, 128) == "seg"
-    ref, _ = jcodec.compress(vol, 1e-2, block=block)
-
-    # force the fallback; the jit cache keys only on plane_geom, so the
-    # cached block-order trace must be dropped
-    rd.pack_active_stripe_seg.clear_cache()
-    monkeypatch.setattr(rd, "seg_block_order_ok", lambda g: False)
-    try:
-        got, _ = jcodec.compress(vol, 1e-2, block=block)
-    finally:
-        rd.pack_active_stripe_seg.clear_cache()
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
-
-
-def test_stripe_patch_mode_still_matches(monkeypatch, rng):
-    """CVX_STRIPE=patch (the older patch-gather pack) emits byte-identical
-    containers to the SEG pack — both consume the same stripe plane, so
-    this is exact (the standard path's blocked einsums differ by ~1 ulp
-    at truncation edges on random data and are compared elsewhere)."""
-    shape, block = (64, 96, 96), (32, 32, 32)
-    _interpret_kernels(monkeypatch)
-    vol = (rng.standard_normal(shape) * 40).astype(np.float32)
-    vol[rng.random(shape) >= 0.2] = 0.0
-    monkeypatch.setattr(jcodec, "use_pallas", lambda: True)
-    monkeypatch.setenv("CVX_STRIPE", "1")
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "0")  # pin the staged path
-    assert jcodec._use_stripe_path(shape, block, False, 128) == "seg"
-    ref, _ = jcodec.compress(vol, 1e-2, block=block)
-    monkeypatch.setenv("CVX_STRIPE", "patch")
-    assert jcodec._use_stripe_path(shape, block, False, 128) == "patch"
-    got, _ = jcodec.compress(vol, 1e-2, block=block)
-    np.testing.assert_array_equal(ref, got)
-
-
-def test_stripe_seg_local_rms(monkeypatch, rng):
-    """Local-RMS through the seg pack: mulfacs may differ from the
-    block-major path by ~1 ulp (documented reduction-order deviation),
-    so assert self-consistency: the container decodes to within one
-    quantization step of the standard path's decode."""
-    shape, block = (64, 96, 96), (32, 32, 32)
-    _interpret_kernels(monkeypatch)
     vol = make_sinusoid_volume(*shape, periods=3)
-    ref, _ = jcodec.compress(vol, 1e-2, block=block, use_local_rms=True)
-    monkeypatch.setenv("CVX_STRIPE", "1")
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "0")  # pin the staged path
-    monkeypatch.setattr(jcodec, "use_pallas", lambda: True)
-    got, _ = jcodec.compress(vol, 1e-2, block=block, use_local_rms=True)
-    a = jcodec.decompress(ref, engine="host")
-    b = jcodec.decompress(got, engine="host")
-    hdr = ctn.unpack(ref)[0]
-    mfs = ctn.unpack(ref)[2]
-    step = (1.0 / np.abs(mfs[mfs != 0])).max() if mfs is not None else 0.0
-    assert np.abs(a - b).max() <= step + 1e-30
-
-
-def test_stripe_fused_local_rms(monkeypatch, rng):
-    """Local-RMS through the FUSED stripe kernel (per-block RMS computed
-    in-VMEM between the cascades and the tokenize): self-consistent with
-    the staged local path within one quantization step (the in-kernel
-    sublane-sum reduction order differs from the staged jnp.sum — the
-    same documented ~1 ulp mulfac deviation as staged-vs-block-major),
-    and the stored blkmulfac table matches the staged one to ~1 ulp."""
-    shape, block = (64, 96, 96), (32, 32, 32)
-    _interpret_kernels(monkeypatch)
-    vol = make_sinusoid_volume(*shape, periods=3)
-    vol = vol + (rng.standard_normal(shape) * 1e-3).astype(np.float32)
-    monkeypatch.setattr(jcodec, "use_pallas", lambda: True)
-    monkeypatch.setenv("CVX_STRIPE", "1")
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "0")  # staged local path
-    ref, _ = jcodec.compress(vol, 1e-2, block=block, use_local_rms=True)
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "1")  # fused local path
-    got, _ = jcodec.compress(vol, 1e-2, block=block, use_local_rms=True)
-    mref = ctn.unpack(ref)[2]
-    mgot = ctn.unpack(got)[2]
-    np.testing.assert_allclose(mgot, mref, rtol=1e-5)
-    a = jcodec.decompress(ref, engine="host")
-    b = jcodec.decompress(got, engine="host")
-    step = (1.0 / np.abs(mref[mref != 0])).max()
-    assert np.abs(a - b).max() <= step + 1e-30
-    # and the fused-local roundtrip holds the codec's quality contract
-    err = np.linalg.norm(b - vol) / np.linalg.norm(vol)
+    data, _ = jcodec.compress(vol, 1e-2, block=block, use_local_rms=True)
+    hdr, _, mfs, _ = ctn.unpack(data)
+    assert hdr.use_local_rms and np.all(mfs > 0)
+    ids = np.arange(hdr.grid[3])
+    assert checks.entropy_mismatches(vol, data, 1e-2, ids) == []
+    out = jcodec.decompress(data)
+    assert checks.roundtrip_error(data, out, ids) < 1e-5
+    err, _ = rel_error_and_snr(vol, out)
     assert err < 2e-2
 
 
-def test_stripe_fused_container_parity_sinusoid(monkeypatch):
-    """The fused stripe mega-kernel (x/y/z + scale + tokenize in one
-    pass) emits the same container as the staged seg path on the CI
-    sinusoid (values far from truncation edges; the z-then-y-then-x
-    rounding order differs by ~1 ulp on adversarial data)."""
-    from cvxcompress_tpu.ops import tokenize_pallas as tp
-
-    shape, block = (64, 96, 96), (32, 32, 32)
-    _interpret_kernels(monkeypatch)
-    assert tp.stripe_fused_ok(shape, block)
-    vol = make_sinusoid_volume(*shape, periods=3)
-    monkeypatch.setattr(jcodec, "use_pallas", lambda: True)
-    monkeypatch.setenv("CVX_STRIPE", "1")
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "0")  # pin the staged path
-    ref, _ = jcodec.compress(vol, 1e-2, block=block)
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "1")
-    got, _ = jcodec.compress(vol, 1e-2, block=block)
-    np.testing.assert_array_equal(ref, got)
-
-
-def test_stripe_fused_random_quality(monkeypatch, rng):
-    """Fused stripe kernel on random sparse data: decodes as well as the
-    staged stripe path (per-cell decode error is NOT bounded by one
-    quantization step — inverse-wavelet synthesis gain amplifies the
-    coefficient rounding — so compare against the staged path's decode,
-    whose coefficients differ only by the z/y/x rounding order, plus the
-    codec's rel-RMS contract); oracle backend decodes the container."""
+def test_random_volume_quality(rng):
+    """Random sparse data decodes as well as the oracle codec's own
+    container (per-cell decode error is NOT bounded by one quantization
+    step — inverse-wavelet synthesis gain amplifies the coefficient
+    rounding — so compare rel-RMS error), and the oracle backend decodes
+    the device container to the transform contract."""
     shape, block = (64, 64, 160), (16, 32, 32)
-    _interpret_kernels(monkeypatch)
     vol = (rng.standard_normal(shape) * 50).astype(np.float32)
     vol[rng.random(shape) >= 0.2] = 0.0
-    monkeypatch.setattr(jcodec, "use_pallas", lambda: True)
-    monkeypatch.setenv("CVX_STRIPE", "1")
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "0")  # pin the staged path
-    ref, _ = jcodec.compress(vol, 1e-2, block=block)
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "1")
     data, _ = jcodec.compress(vol, 1e-2, block=block)
-    out = jcodec.decompress(data, engine="host")
-    base = jcodec.decompress(ref, engine="host")
-    hdr = ctn.unpack(data)[0]
-    step = 1.0 / hdr.glob_mulfac
-    # coefficients agree to <=1 quantization step (rounding-order only);
-    # inverse synthesis gain per cell stays within a few steps
-    assert np.abs(out - base).max() <= 4 * step
+    out = jcodec.decompress(data)
+    ref, _ = ocodec.compress(vol, 1e-2, block=block)
+    base = ocodec.decompress(ref)
     rel = np.sqrt(np.mean((out - vol) ** 2)) / np.sqrt(np.mean(vol**2))
     rel_base = np.sqrt(np.mean((base - vol) ** 2)) / np.sqrt(np.mean(vol**2))
     assert rel <= rel_base * 1.05 + 1e-12
-    out2 = ocodec.decompress(data)  # f64 oracle inverse vs host f32
+    out2 = ocodec.decompress(data)  # scalar oracle inverse vs device
     assert np.abs(out2 - out).max() <= 1e-4 * np.abs(out).max()
 
 
-def test_caps_cache_overflow_repacks(monkeypatch, rng):
+def test_caps_cache_overflow_repacks(rng):
     """A stream whose content jumps (low-entropy volume seeds small
     cached caps, then a dense volume overflows them) must repack with
     exact caps and still emit byte-identical containers to the
     cache-free standard path."""
     shape, block = (64, 96, 96), (32, 32, 32)
-    _interpret_kernels(monkeypatch)
-    monkeypatch.setattr(jcodec, "use_pallas", lambda: True)
-    monkeypatch.setenv("CVX_STRIPE", "1")
-    monkeypatch.setenv("CVX_STRIPE_FUSED", "0")
 
     quiet = make_sinusoid_volume(*shape, periods=2) * 1e-3
     dense = (rng.standard_normal(shape) * 500).astype(np.float32)
@@ -668,35 +299,68 @@ def test_caps_cache_overflow_repacks(monkeypatch, rng):
     np.testing.assert_array_equal(np.asarray(ref_q), np.asarray(d_q2))
 
 
-def test_stripe_fused_inverse_matches_staged(monkeypatch, rng):
-    """The fused stripe inverse kernel (x+y+z in one VMEM pass) matches
-    the staged x + y/z einsum inverse within the 1e-5 transform contract
-    on a random coefficient plane, including x-unpad via the clipped
-    operator and z/y edge-pad clipping."""
-    import jax.numpy as jnp
+def test_platform_is_read_from_the_compute_devices():
+    """The codec's one platform decision comes from jax.devices() — the
+    devices its jits run on — and is read once per process."""
+    import jax
 
-    from cvxcompress_tpu.ops import fused_inverse as fi
-    from cvxcompress_tpu.ops import wavelet
+    assert jcodec.platform() == jax.devices()[0].platform == "cpu"
+    hits = jcodec.platform.cache_info().hits
+    jcodec.platform()
+    assert jcodec.platform.cache_info().hits == hits + 1
 
-    shape, block = (60, 90, 90), (32, 32, 32)  # unaligned on all axes
-    nz, ny, nx = shape
-    bx, by, bz = block
-    nbz, nby, nbx = -(-nz // bz), -(-ny // by), -(-nx // bx)
-    nbx2 = wavelet.padded_nbx(nbx, bx)
-    nzp, nyp, W = nbz * bz, nby * by, nbx2 * bx
-    assert fi.stripe_inverse_ok(shape, block)
-    plane = rng.standard_normal((nzp * nyp, W)).astype(np.float32)
-    # phantom x-pad columns hold zeros in real decode planes
-    plane[:, nbx * bx:] = 0.0
-    ref = wavelet.inverse_3d_volume(
-        wavelet.apply_x_inverse_rows(jnp.asarray(plane), bx), shape, block
-    )
-    got = fi.stripe_fused_inverse(
-        jnp.asarray(plane), shape, block, interpret=True
-    )
-    ref = np.asarray(ref)
-    got = np.asarray(got)
-    assert got.shape == ref.shape == shape
-    denom = np.sqrt((ref.astype(np.float64) ** 2).mean()) + 1e-30
-    rel = np.sqrt(((got - ref).astype(np.float64) ** 2).mean()) / denom
-    assert rel < 1e-5, rel
+
+@pytest.mark.parametrize(
+    "platform,engine",
+    [("cpu", "host"), ("gpu", jcodec.AUTO_ENGINE["gpu"]), ("rocm", "host")],
+)
+def test_auto_engine_rule(monkeypatch, platform, engine):
+    """auto takes the engine measured faster on the platform (the table),
+    and the host engine on every platform the table does not name."""
+    monkeypatch.setattr(jcodec, "platform", lambda: platform)
+    assert jcodec.auto_engine() == engine
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_decompress_auto_runs_the_rule_engine(monkeypatch, engine):
+    vol = make_sinusoid_volume(32, 32, 32, periods=2)
+    data, _ = jcodec.compress(vol, 1e-2, block=(16, 16, 16))
+    ran = []
+    real = jcodec.decompress_device
+
+    def spy(d, to_host=True):
+        ran.append("device")
+        return real(d, to_host)
+
+    monkeypatch.setattr(jcodec, "decompress_device", spy)
+    monkeypatch.setattr(jcodec, "auto_engine", lambda: engine)
+    out = jcodec.decompress(data)
+    assert ran == (["device"] if engine == "device" else [])
+    np.testing.assert_array_equal(out, jcodec.decompress(data, engine=engine))
+
+
+def test_decompress_unknown_engine_rejected():
+    vol = make_sinusoid_volume(16, 16, 16, periods=2)
+    data, _ = jcodec.compress(vol, 1e-2, block=(8, 8, 8))
+    with pytest.raises(ValueError, match="unknown engine"):
+        jcodec.decompress(data, engine="gpu")
+
+
+@pytest.mark.parametrize(
+    "shape,block,scale",
+    [
+        ((96, 64, 64), (32, 32, 32), 1e-2),
+        ((19, 27, 41), (16, 16, 16), 1e-2),   # partial edge blocks
+        ((64, 64, 128), (128, 64, 32), 1e-3),  # bx = 128
+        ((8, 8, 256), (256, 8, 8), 1e-3),      # bx = 256 (chunk < bx)
+        ((1, 32, 32), (16, 16, 1), 1e-2),      # 2D (bz == 1)
+    ],
+)
+def test_engines_bit_identical(rng, shape, block, scale):
+    """Both decompress engines end in the same expand + inverse, so they
+    give bit-identical volumes (the entropy decoders are bit-exact)."""
+    vol = rng.standard_normal(shape).astype(np.float32)
+    data, _ = jcodec.compress(vol, scale, block=block)
+    a = jcodec.decompress(data, engine="device")
+    b = jcodec.decompress(data, engine="host")
+    np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))

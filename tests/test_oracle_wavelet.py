@@ -69,7 +69,7 @@ def test_3d_roundtrip(shape, rng):
 
 
 def test_linearity(rng):
-    # the multi-level transform is linear: basis for the TPU matmul design
+    # the multi-level transform is linear: basis for the matmul design
     a = rng.standard_normal(32).astype(np.float32)
     b = rng.standard_normal(32).astype(np.float32)
     lhs = w.ds79((2.0 * a + 3.0 * b).astype(np.float32))

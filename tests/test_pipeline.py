@@ -21,7 +21,7 @@ def test_compress_stream_order_and_parity():
 
 def test_compress_stream_bounded_lookahead():
     """The stream pulls lazily: at most workers+1 volumes in flight, so an
-    unbounded snapshot stream never accumulates in memory (ADVICE r1)."""
+    unbounded snapshot stream never accumulates in memory."""
     pulled = []
 
     def gen():

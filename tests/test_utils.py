@@ -98,8 +98,8 @@ def test_decompress_inplace_api():
 
 def test_decode_bounded_on_midpayload_truncation(rng):
     """A cut that keeps every offset in range but truncates a block's
-    STREAM is caught by the buffer-bounded decoders (ADVICE round-1 high:
-    the old validate() passed such containers straight into C++)."""
+    STREAM is caught by the buffer-bounded decoders (an earlier
+    validate() passed such containers straight into C++)."""
     vol = rng.standard_normal((16, 16, 16)).astype(np.float32)
     data, _ = cvx.compress(vol, 1e-2, block=(8, 8, 8))
     cut = data[: data.size - 64]

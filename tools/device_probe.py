@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """Probe the accelerator and report codec-relevant capabilities.
 
-TPU-native analog of the reference's CPUID feature probe
+The analog of the reference's CPUID feature probe
 (check_4th_gen_intel_core_features.cpp:46-92): instead of AVX2/FMA/BMI
-bits, reports the JAX backend, device inventory, whether the Pallas
-kernels will engage, and a tiny compile smoke test.
+bits, reports the JAX backend, device inventory, the platform the codec
+decides on and its decompress engine, and a tiny compile smoke test.
 
 Usage: python tools/device_probe.py
 """
@@ -26,8 +26,8 @@ def main():
 
     from cvxcompress_tpu.ops import codec
 
-    pallas = codec.use_pallas()
-    print(f"pallas kernels: {'ENABLED' if pallas else 'disabled (XLA path)'}")
+    print(f"codec platform: {codec.platform()}, "
+          f"decompress engine: {codec.auto_engine()}")
 
     x = jnp.arange(8.0)
     ok = bool(np.allclose(np.asarray(jax.jit(lambda a: a * 2)(x)), 2 * np.arange(8.0)))

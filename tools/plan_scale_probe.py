@@ -5,11 +5,11 @@ The reference's big benchmark volume is 960x1248x1056 at 32^3 blocks
 planning, so our recurring host plan must stay negligible at that block
 count).  nnn = 30*39*33 = 38,610 blocks — 27x the CI config's 1,430.
 
-Round-2 VERDICT #3's bar: plan cost at nnn=38,610 < 5 ms.  plan() is
+The bar: plan cost at nnn=38,610 < 5 ms.  plan() is
 O(compressed bytes) span arithmetic + one native ragged memcpy
 (ops/entropy_decode.py:140-234, no per-block Python loop), so the cost
 should scale with payload size, not block count.  This probe builds the
-container with the NATIVE backend (host-only — runs with the TPU busy)
+container with the NATIVE backend (host-only — runs with the GPU busy)
 and times plan() with and without staging reuse.
 
 Usage: python tools/plan_scale_probe.py [--small]

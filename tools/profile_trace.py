@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Capture a jax.profiler trace of the compress pipeline (XProf/TensorBoard).
 
-TPU-native analog of the reference's optional PAPI hardware-counter hooks
+The analog of the reference's optional PAPI hardware-counter hooks
 (CvxCompress.cpp:21-27,787-801): where the reference samples FLOP counters
 around its hot loops, this captures a full device trace of the codec
 stages for inspection in XProf.
 
 Usage:
-  python tools/profile_trace.py [--logdir /tmp/cvx_trace]
+  python tools/profile_trace.py [--logdir chiprun_out/trace]
          [--nz 128 --ny 128 --nx 128] [--block 32,32,32] [--iters 3]
 Then: tensorboard --logdir <logdir>  (or open with xprof)
 """
@@ -23,7 +23,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--logdir", default="/tmp/cvx_trace")
+    ap.add_argument("--logdir", default="chiprun_out/trace")
     ap.add_argument("--nz", type=int, default=128)
     ap.add_argument("--ny", type=int, default=128)
     ap.add_argument("--nx", type=int, default=128)

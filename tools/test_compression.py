@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """File-driven compress/decompress benchmark with error-volume dumps.
 
-TPU-native equivalent of the reference's Test_Compression CLI
+The equivalent of the reference's Test_Compression CLI
 (Test_Compression.cpp:53-230): reads a raw float32 volume (or synthesizes
 the radial test volume), round-trips it at a given scale/block, reports
 timings/ratio/SNR, and optionally dumps the error volume and text XZ
